@@ -6,7 +6,7 @@ EbH265EncSendPicture -> EbH265GetPacket, EbEncHandle.c:3603): pictures go
 in without blocking on the encode, coded packets come out in decode order
 with pts/dts, and the pipeline runs ahead asynchronously (the reference's
 picture-level pipelining via process threads; here one worker thread
-driving the staged JAX pipeline, since the heavy stages are TPU dispatches
+driving the staged JAX pipeline, since the heavy stages are device dispatches
 that already overlap with host work).
 
 Usage:

@@ -24,7 +24,7 @@ from .pipeline.encoder import Encoder
 def build_parser() -> argparse.ArgumentParser:
     # add_help=False: like the reference CLI, -h means height
     p = argparse.ArgumentParser(
-        prog="svt_hevc_tpu", description="TPU-native HEVC encoder",
+        prog="svt_hevc_tpu", description="HEVC encoder in JAX",
         fromfile_prefix_chars="@", add_help=False)
     p.add_argument("--help", action="help")
     p.add_argument("-i", "--input", required=True, action="append",

@@ -4,7 +4,7 @@ op stream instead of doing arithmetic — the native C core
 
 This is the two-stage entropy design from the build plan (SURVEY.md §7
 "two-pass bin generation ... arithmetic-code on host/C++"): syntax
-enumeration stays in Python (and later comes from TPU batch stages), the
+enumeration stays in Python (and later comes from batched device stages), the
 irreducibly-sequential arithmetic runs in native code. Context state is
 still updated live during recording wherever syntax *decisions* depend on
 it — they don't in HEVC (only bin values do), so recording is exact.

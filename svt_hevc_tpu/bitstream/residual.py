@@ -7,7 +7,7 @@ every derivation so they cannot drift.
 
 Analogue of reference Source/Lib/Codec/EbEntropyCoding.c
 (EncodeQuantizedCoefficients_generic :1172; scan selection :1346-1372) —
-re-derived from the spec, structured for later batched bin-generation on TPU
+re-derived from the spec, structured for later batched bin-generation on device
 (collect (ctx, bin) pairs per TU in parallel, arithmetic-code per tile).
 """
 

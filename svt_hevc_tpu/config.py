@@ -1,6 +1,6 @@
 """Encoder configuration.
 
-The TPU-native analogue of ``EB_H265_ENC_CONFIGURATION``
+The analogue of ``EB_H265_ENC_CONFIGURATION``
 (reference: Source/API/EbApi.h:173-669) plus the derived-dimension logic of
 ``EbHevcSetParamBasedOnInput`` (reference: Source/Lib/Codec/EbEncHandle.c:1901)
 and the validation of ``VerifySettings`` (EbEncHandle.c:2134).
@@ -93,7 +93,7 @@ class EncoderConfig:
                                  # (reference: segmentOvEnabled, EbApi.h)
     # multi-chip picture parallelism: batch the independent non-reference
     # leaf pictures of hierarchical GOPs into ONE vmapped fused graph
-    # sharded over the device mesh (the TPU-native analogue of the
+    # sharded over the device mesh (the analogue of the
     # reference's many-pictures-in-flight pipeline, EbEncHandle.c:1645;
     # SURVEY §2.6 "data parallelism over pictures"). Streams are
     # byte-identical to the single-device path (tests/test_mesh_encoder.py)

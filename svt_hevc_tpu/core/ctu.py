@@ -857,7 +857,7 @@ class _InterPlan:
         self.amvp = [None, None]
 
 
-# integer refinement radius around the TPU HME seed (full-pel). The
+# integer refinement radius around the device HME seed (full-pel). The
 # 3-level HME already localises to ~1 pel; r=2 measured bit-identical to
 # r=4 on panning content at 1.6x the speed
 SEEDED_ME_RANGE = 2
@@ -920,7 +920,7 @@ class CtuEncoder(CtuCoderBase):
         self.mode_policy = mode_policy    # optional (x,y,size)->mode override
         self.me_seed = me_seed       # (H//16, W//16, 2) quarter-pel MV field
         self.feat = features if features is not None else derive_preset(7)
-        # TPU open-loop intra search products: {n: (mode_map, cost_map)}
+        # device open-loop intra search products: {n: (mode_map, cost_map)}
         # for n in 4/8/16/32 (reference analogue: OIS results driving MD
         # candidate pruning, EbModeDecisionConfigurationProcess.c:289)
         self.ois = ois
@@ -954,7 +954,7 @@ class CtuEncoder(CtuCoderBase):
         return float(np.var(blk.astype(np.float64))) > 900.0
 
     def _ois_mode(self, px, py, n) -> int | None:
-        """Open-loop best mode of the block from the TPU OIS maps (64-CU
+        """Open-loop best mode of the block from the device OIS maps (64-CU
         PUs fall back to the covering 32 map)."""
         if self.ois is None:
             return None
@@ -993,7 +993,7 @@ class CtuEncoder(CtuCoderBase):
             bits = (1 + (1 if cand.index(mode) == 0 else 2)
                     if mode in cand else 6)
             # SATD ranking (~2x SAD scale), like the reference's MD fast
-            # loop and the TPU OIS — SAD misranks directional residuals
+            # loop and the device OIS — SAD misranks directional residuals
             cost = _satd_host(pred - src) + 6 * bits
             if best_cost is None or cost < best_cost:
                 best_mode, best_cost = mode, cost
@@ -1065,9 +1065,9 @@ class CtuEncoder(CtuCoderBase):
 
     def _motion_search(self, x0, y0, n, pred_mv, lst=0):
         """Integer full search around the better of the AMVP predictor and
-        the TPU HME seed, then half- and quarter-pel refinement. Returns
+        the device HME seed, then half- and quarter-pel refinement. Returns
         (sad, (mvx, mvy) quarter-pel). Host analogue of reference
-        MotionEstimateLcu (EbMotionEstimation.c:3671); the batched TPU HME
+        MotionEstimateLcu (EbMotionEstimation.c:3671); the batched device HME
         (svt_hevc_tpu.tpu.me) supplies the search centers."""
         from .inter import _gather_window, interp_luma
         st = self.st
@@ -1237,7 +1237,7 @@ class CtuEncoder(CtuCoderBase):
             if cost < best[0]:
                 best = (cost, "bi", mi_bi)
 
-        # intra comparison (2Nx2N): TPU OIS cost when available (the
+        # intra comparison (2Nx2N): device OIS cost when available (the
         # reference's fast-loop intra-vs-inter uses the OIS SADs), else a
         # host closed-loop probe. The open-loop cost predicts from clean
         # source neighbors and so understates the closed-loop cost; the 2x

@@ -14,7 +14,7 @@ then horizontal on the vertically-filtered result).
 
 Analogue of reference Source/Lib/Codec/EbDeblockingFilter.c (bS maps
 :339/:472, luma/chroma edge cores :1027-2221) re-designed batch-first; the
-TPU path will run the same math as lane-parallel Pallas over edge columns.
+device path (tpu/dlf.py) runs the same math edge-parallel in JAX.
 """
 
 from __future__ import annotations

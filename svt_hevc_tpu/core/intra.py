@@ -6,7 +6,7 @@ DC (8.4.4.2.5), angular 2..34 (8.4.4.2.6) with the normative luma boundary
 filters for DC / pure-horizontal / pure-vertical.
 
 Shared by the encoder's encode pass and the conformance decoder so the
-reconstruction loop is a single implementation. The TPU open-loop search
+reconstruction loop is a single implementation. The device open-loop search
 (svt_hevc_tpu.tpu.intra_search) runs the same arithmetic batched over all
 blocks; this module is the scalar ground truth it is tested against.
 

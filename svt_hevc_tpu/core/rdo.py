@@ -105,7 +105,7 @@ class Decisions:
 
 class RdSearch:
     """Per-CTB RD search. mode_candidates optionally restricts the luma
-    mode loop (e.g. from the TPU open-loop search)."""
+    mode loop (e.g. from the device open-loop search)."""
 
     def __init__(self, st: PictureState, src, *, lam: float | None = None,
                  mode_candidates=None, try_nxn: bool = True, me_seed=None,

@@ -32,6 +32,15 @@ SAO_OFF, SAO_BAND, SAO_EDGE = 0, 1, 2
 SAO_RATE_SCALE = 2
 
 
+def rate_lambda(lam) -> np.float32:
+    """lam rounded to 15 significant bits for the SAO decision: its
+    products with the integer rate counts (< 2^9) are then exact in
+    float32, so a score ``gain - lam * rate`` rounds once whether or not a
+    backend fuses the multiply into the subtraction."""
+    m, e = np.frexp(np.float32(lam))
+    return np.float32(np.ldexp(np.round(m * 2.0 ** 15), e - 15))
+
+
 def _max_offset(bit_depth: int) -> int:
     """(1 << (min(bd,10)-5)) - 1: 7 at 8-bit, 31 at 10-bit (7.4.9.3)."""
     return (1 << (min(bit_depth, 10) - 5)) - 1
@@ -439,14 +448,15 @@ def _bo_offsets_gains(bo_cnt, bo_sum, lam, mx):
                               ob[iy, ix, bp + i], 0) for i in range(4)], -1)
     g = (np.take_along_axis(win, bp[..., None], -1)[..., 0]
          .astype(np.float32)
-         - np.float32(lam) * np.float32(SAO_RATE_SCALE)
-         * (9 + (np.abs(offs) + 1).sum(-1)).astype(np.float32))
+         - rate_lambda(lam)
+         * (SAO_RATE_SCALE * (9 + (np.abs(offs) + 1).sum(-1))
+            ).astype(np.float32))
     return bp, offs, g
 
 
 def derive_sao_params_from_stats(st, stats, lam: float):
     """derive_sao_params with the per-CTB statistics precomputed on the
-    TPU (tpu.encode.sao_stats_plane): identical decision math, fully
+    device (tpu.encode.sao_stats_plane): identical decision math, fully
     vectorized over the CTB grid. stats: per-component dicts with
     eo_cnt/eo_sum (ny, nx, 4, 5) and bo_cnt/bo_sum (ny, nx, 32)."""
     ctb = 1 << st.ctb_log2
@@ -467,7 +477,7 @@ def derive_sao_params_from_stats(st, stats, lam: float):
         eo_offs, eo_gain = _eo_offsets_gains(eo_cnt, eo_sum, mx)
         eo_rate = SAO_RATE_SCALE * (4 + (np.abs(eo_offs) + 1).sum(-1))
         eo_score = (eo_gain.astype(np.float32)
-                    - np.float32(lam) * eo_rate.astype(np.float32))
+                    - rate_lambda(lam) * eo_rate.astype(np.float32))
         bo_bp, bo_offs, bo_score = _bo_offsets_gains(bo_cnt, bo_sum, lam, mx)
         bo_valid = (bo_score > 0) & bo_offs.any(-1)
 

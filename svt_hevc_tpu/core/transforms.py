@@ -12,7 +12,8 @@ Conventions (match the spec and every conformant decoder):
 
 Analogue of reference Source/Lib/Codec/EbTransforms.c (EstimateTransform
 :3268, EstimateInvTransform :3455) re-designed as dense matrix products so
-the TPU path (svt_hevc_tpu.tpu.kernels) can run the same math on the MXU.
+the device path (svt_hevc_tpu.tpu.encode) runs the same math as batched
+integer matmuls.
 """
 
 from __future__ import annotations

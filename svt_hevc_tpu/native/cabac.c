@@ -1,7 +1,7 @@
 /* CABAC binary arithmetic encoder, op-stream backend (H.265 9.3.4).
  *
  * Consumes a recorded op stream (see svt_hevc_tpu/bitstream/recorder.py):
- * the Python/TPU layers enumerate (kind, a, b) bin operations; this core
+ * the Python/device layers enumerate (kind, a, b) bin operations; this core
  * runs the sequential arithmetic coding in one call. Bit-exact with the
  * Python reference backend (svt_hevc_tpu/bitstream/cabac.py) — equivalence
  * is enforced by tests, the project analogue of the reference's

@@ -3,20 +3,20 @@
 The reference scales with pthreads over shared memory: picture-level
 pipelining, ME segment grids, EncDec wavefronts, per-tile CABAC
 (EbSystemResourceManager.c FIFOs; EbEncHandle.c:1726 thread budgeting).
-The TPU-native equivalents here are device-mesh axes instead of thread
+The equivalents here are device-mesh axes instead of thread
 pools:
 
   gop axis  — data parallelism over in-flight pictures (the analogue of
               many pictures in flight across process threads);
   tile axis — spatial parallelism over picture rows (the analogue of ME
               segments / EncDec segment rows), with explicit halo
-              exchange of boundary rows over ICI via lax.ppermute where
+              exchange of boundary rows between devices via lax.ppermute where
               a search window crosses the shard boundary.
 
 Everything compiles under one jit: XLA inserts the collectives for the
 gop-sharded batch; the tile-sharded motion search uses shard_map so the
 halo exchange is explicit and minimal (2 x halo rows per neighbor pair
-per step, riding ICI, never HBM round trips through the host).
+per step, device to device, never round trips through the host).
 """
 
 from __future__ import annotations

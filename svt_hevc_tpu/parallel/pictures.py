@@ -3,7 +3,7 @@
 The reference's scaling identity is MANY PICTURES IN FLIGHT: dozens of
 pictures move through its 13-process pipeline concurrently, bounded only
 by reference dependencies (EbEncHandle.c:1645-1671 picture pools;
-EbSystemResourceManager.c FIFOs). The TPU-native equivalent implemented
+EbSystemResourceManager.c FIFOs). The equivalent implemented
 here: within a hierarchical low-delay GOP, every NON-REFERENCE leaf
 picture (temporal layer == hierarchical_levels) depends only on
 already-coded lower-layer pictures — so a group of consecutive leaves is

@@ -1,6 +1,6 @@
 """Content classification driving QP/MD adaptation.
 
-TPU-native analogue of the reference's SourceBasedOperations process
+Device analogue of the reference's SourceBasedOperations process
 (EbSourceBasedOperationsProcess.c DerivePictureActivityStatistics :81,
 grass/skin/dark/aura LCU classification :1159-1369): the reference walks
 LCUs accumulating per-class percentages from pixel/chroma statistics;

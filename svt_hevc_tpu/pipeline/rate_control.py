@@ -11,7 +11,7 @@ Two VBR operating points:
  - reactive (no lookahead): frame QP adapts multiplicatively toward the
    target bits/frame from a running complexity estimate;
  - lookahead high-level RC: the window's per-picture complexities
-   (TPU-batched decimated zero-MV SADs, svt_hevc_tpu.tpu.analysis
+   (device-batched decimated zero-MV SADs, svt_hevc_tpu.tpu.analysis
    .lookahead_stats) apportion the window bit budget per picture
    (the reference's histogram-queue bit budgeting), and a calibrated
    bits = gain * complexity * 2^(-qp/6) model converts the picture target
@@ -69,7 +69,7 @@ class RateControl:
     # ------------------------------------------------------------------ api
     def pick_qp(self, is_idr: bool, window=None, layer: int = 0) -> int:
         """window: optional list of per-picture complexities (current frame
-        first, then the lookahead frames) from the TPU lookahead stats.
+        first, then the lookahead frames) from the device lookahead stats.
         layer: temporal layer of the picture (selects the per-layer rate
         model, reference EbRateControlProcess.c:2406-2416)."""
         if self.mode == 0 or not self.target_bits:

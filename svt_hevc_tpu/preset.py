@@ -21,7 +21,7 @@ class PresetFeatures:
     subpel_me: bool             # half/quarter-pel refinement
     all_intra_modes: bool       # 35-mode search vs DC/planar/MPM-only
     rdoq: bool                  # RD-optimized quantization (PM analogue)
-    ois_intra: bool             # TPU open-loop intra search drives the MD
+    ois_intra: bool             # device open-loop intra search drives the MD
                                 # candidate shortlist (reference: enhanced-I
                                 # OIS candidates at M3-9, SURVEY.md §2.4b;
                                 # M0-2 search all 35 modes closed-loop)

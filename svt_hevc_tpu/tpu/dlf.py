@@ -1,4 +1,4 @@
-"""TPU deblocking filter: dense edge-parallel JAX form of core/deblock.py.
+"""Device deblocking filter: dense edge-parallel JAX form of core/deblock.py.
 
 The reference filters per-LCU inside the EncDec loop
 (EbDeblockingFilter.c edge cores :1027-2221, invoked EbCodingLoop.c

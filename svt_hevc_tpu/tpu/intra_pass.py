@@ -1,6 +1,6 @@
-"""TPU closed-loop intra encode pass: wavefront over CTB anti-diagonals.
+"""Device closed-loop intra encode pass: wavefront over CTB anti-diagonals.
 
-This is the TPU-native redesign of the reference's intra encode path
+This is the data-parallel redesign of the reference's intra encode path
 (EbCodingLoop.c EncodePass :2989 with reference-sample generation
 EbIntraPrediction.c :212+), whose neighbor dependencies the reference
 parallelises with the EncDec segment wavefront + dependency map
@@ -433,8 +433,7 @@ def intra_wavefront_pass(src_y, src_cb, src_cr,
                                        jnp.tile(refs_f, (nc_, 1)),
                                        cm_all, n, True, bit_depth)
                 p_all = p_all.reshape(nc_, R, n, n)
-                sse = jnp.sum(((srcn[None] - p_all)
-                               * (srcn[None] - p_all)).astype(jnp.float32),
+                sse = jnp.sum((srcn[None] - p_all) * (srcn[None] - p_all),
                               (-2, -1))
                 kbest = jnp.argmin(sse, 0)
                 md_sel = jnp.take_along_axis(

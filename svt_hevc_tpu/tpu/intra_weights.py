@@ -5,9 +5,9 @@ Every HEVC intra mode (planar / DC / angular, including the mode-dependent
 their rare saturating clips) is a *linear* map from the reference-sample
 vector r = [left[0..2N-1], corner, top[0..2N-1]] to the NxN prediction.
 This module materialises those maps as float32 matrices
-W[mode] in R^(N^2 x (4N+1)), so the TPU search stage can evaluate all 35
-modes for thousands of blocks as one refs @ W^T contraction on the MXU —
-the TPU-native replacement for the reference's per-mode SIMD kernels
+W[mode] in R^(N^2 x (4N+1)), so the device search stage can evaluate all 35
+modes for thousands of blocks as one refs @ W^T contraction —
+the batched replacement for the reference's per-mode SIMD kernels
 (reference: Source/Lib/ASM_*/EbIntraPrediction16bit_Intrinsic_*.c) and its
 open-loop intra search (EbMotionEstimation.c OpenLoopIntraSearchLcu :5053).
 

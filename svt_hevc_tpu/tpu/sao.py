@@ -1,11 +1,12 @@
-"""TPU SAO: per-CTB statistics -> decision -> picture apply, all on device.
+"""Device SAO: per-CTB statistics -> decision -> picture apply, all on device.
 
 Device mirror of core/sao.py's stats-based decision
 (derive_sao_params_from_stats) and vectorized apply (apply_sao), so the
 fast path's post-DLF reconstruction never leaves the device: the fused
 graph gathers stats (tpu.encode.sao_stats_plane), picks per-CTB
-type/class/offsets with the same integer-valued math (values < 2^24, so
-float32 is exact), applies the offsets, and hands the host only the tiny
+type/class/offsets with the same math (offsets and gains in int32, one
+float32 rounding per score, see core.sao.rate_lambda — so every backend
+decides alike), applies the offsets, and hands the host only the tiny
 parameter grids for syntax emission (encode_sao_ctb). The reference
 decides per-LCU in the encode pass and applies once per picture
 (EbSampleAdaptiveOffsetGenerationDecision.c :647, ApplySaoOffsetsPicture
@@ -24,42 +25,55 @@ _EO_NEIGHBORS = (((-1, 0), (1, 0)), ((0, -1), (0, 1)),
                  ((-1, -1), (1, 1)), ((1, -1), (-1, 1)))
 
 
+def _round_div(s, c):
+    """Round-half-even of s / c for int32 s and c > 0, in integers (the
+    numpy mirror's np.round of the exact quotient)."""
+    q = jnp.floor_divide(s, c)
+    r2 = 2 * (s - q * c)
+    return q + ((r2 > c) | ((r2 == c) & (q % 2 == 1))).astype(jnp.int32)
+
+
 def _eo_offsets_gains(eo_cnt, eo_sum, mx: int):
-    """(offs (ny,nx,4cls,4), gain (ny,nx,4cls)) — jax mirror of
+    """(offs (ny,nx,4cls,4), gain (ny,nx,4cls) int32) — jax mirror of
     core.sao._eo_offsets_gains."""
-    c = eo_cnt[..., 1:5].astype(jnp.float32)
-    s = eo_sum[..., 1:5].astype(jnp.float32)
-    o = jnp.where(c > 0,
-                  jnp.clip(jnp.round(s / jnp.maximum(c, 1.0)), -mx, mx), 0.0)
-    o = o.at[..., 0:2].set(jnp.maximum(o[..., 0:2], 0.0))
-    o = o.at[..., 2:4].set(jnp.minimum(o[..., 2:4], 0.0))
-    g = 2.0 * o * s - c * o * o
+    c = eo_cnt[..., 1:5]
+    s = eo_sum[..., 1:5]
+    o = jnp.where(c > 0, jnp.clip(_round_div(s, jnp.maximum(c, 1)), -mx, mx),
+                  0)
+    o = o.at[..., 0:2].set(jnp.maximum(o[..., 0:2], 0))
+    o = o.at[..., 2:4].set(jnp.minimum(o[..., 2:4], 0))
+    g = 2 * o * s - c * o * o
     keep = g > 0
-    offs = jnp.where(keep, o, 0.0)
-    gain = jnp.where(keep, g, 0.0).sum(-1)
-    return offs.astype(jnp.int32), gain
+    offs = jnp.where(keep, o, 0)
+    gain = jnp.where(keep, g, 0).sum(-1)
+    return offs, gain
 
 
-def _bo_offsets_gains(bo_cnt, bo_sum, lam, mx: int):
+def _bo_offsets_gains(bo_cnt, bo_sum, lam_q, mx: int):
     """(bp (ny,nx), offs (ny,nx,4), score) — jax mirror of
     core.sao._bo_offsets_gains."""
-    c = bo_cnt.astype(jnp.float32)
-    s = bo_sum.astype(jnp.float32)
-    ob = jnp.where(c > 0,
-                   jnp.clip(jnp.round(s / jnp.maximum(c, 1.0)), -mx, mx), 0.0)
-    gains = jnp.maximum(jnp.where(ob != 0, 2.0 * ob * s - c * ob * ob, 0.0),
-                        0.0)
+    c, s = bo_cnt, bo_sum
+    ob = jnp.where(c > 0, jnp.clip(_round_div(s, jnp.maximum(c, 1)), -mx, mx),
+                   0)
+    gains = jnp.maximum(jnp.where(ob != 0, 2 * ob * s - c * ob * ob, 0), 0)
     win = jnp.stack([gains[..., k:k + 4].sum(-1) for k in range(29)], -1)
     bp = win.argmax(-1)
     offs = jnp.stack(
         [jnp.where(jnp.take_along_axis(gains, (bp + i)[..., None], -1)[..., 0]
                    > 0,
                    jnp.take_along_axis(ob, (bp + i)[..., None], -1)[..., 0],
-                   0.0) for i in range(4)], -1)
+                   0) for i in range(4)], -1)
     from ..core.sao import SAO_RATE_SCALE
+    rate = SAO_RATE_SCALE * (9 + (jnp.abs(offs) + 1).sum(-1))
     g = (jnp.take_along_axis(win, bp[..., None], -1)[..., 0]
-         - lam * SAO_RATE_SCALE * (9.0 + (jnp.abs(offs) + 1.0).sum(-1)))
-    return bp.astype(jnp.int32), offs.astype(jnp.int32), g
+         .astype(jnp.float32) - lam_q * rate.astype(jnp.float32))
+    return bp.astype(jnp.int32), offs, g
+
+
+def _rate_lambda(lam):
+    """Device mirror of core.sao.rate_lambda (exact: frexp/ldexp)."""
+    m, e = jnp.frexp(lam.astype(jnp.float32))
+    return jnp.ldexp(jnp.round(m * 2.0 ** 15), e - 15).astype(jnp.float32)
 
 
 def sao_decide_dev(stats, lam, bit_depth: int = 8):
@@ -71,17 +85,18 @@ def sao_decide_dev(stats, lam, bit_depth: int = 8):
     offs (ny,nx,3,4) — identical decisions to
     core.sao.derive_sao_params_from_stats."""
     mx = (1 << (min(bit_depth, 10) - 5)) - 1
+    lam_q = _rate_lambda(jnp.asarray(lam))
     out_type, out_eo, out_bp, out_offs = [], [], [], []
     cb_type = cb_eo = None
     for comp in range(3):
         st = stats[comp]
         eo_offs, eo_gain = _eo_offsets_gains(st["eo_cnt"], st["eo_sum"], mx)
         from ..core.sao import SAO_RATE_SCALE
-        eo_rate = SAO_RATE_SCALE * (
-            4.0 + (jnp.abs(eo_offs) + 1.0).sum(-1).astype(jnp.float32))
-        eo_score = eo_gain - lam * eo_rate
+        eo_rate = SAO_RATE_SCALE * (4 + (jnp.abs(eo_offs) + 1).sum(-1))
+        eo_score = (eo_gain.astype(jnp.float32)
+                    - lam_q * eo_rate.astype(jnp.float32))
         bo_bp, bo_offs, bo_score = _bo_offsets_gains(st["bo_cnt"],
-                                                     st["bo_sum"], lam, mx)
+                                                     st["bo_sum"], lam_q, mx)
         bo_valid = (bo_score > 0) & bo_offs.any(-1)
 
         if comp == 2:

@@ -1,7 +1,7 @@
 """Checkpoint/resume: a stream split across two Encoder processes must be
 byte-identical to the continuous encode (SURVEY §5: the encoder's
 resumable state is the DPB + RC state, a plain pytree; the reference has
-no checkpoint surface at all — this is a capability the TPU build adds)."""
+no checkpoint surface at all — this is a capability this build adds)."""
 
 import pickle
 

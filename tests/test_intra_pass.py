@@ -1,4 +1,4 @@
-"""Equivalence tests for the TPU wavefront intra encode pass.
+"""Equivalence tests for the device wavefront intra encode pass.
 
 The device kernel (tpu.intra_pass.intra_wavefront_pass) must be bit-exact
 with the normative scalar path (core.intra + core.transforms + core.quant

@@ -1,4 +1,4 @@
-"""TPU SAO statistics vs the host derive_sao_params decision sweep."""
+"""Device SAO statistics vs the host derive_sao_params decision sweep."""
 
 import numpy as np
 import jax

@@ -1,4 +1,4 @@
-"""TPU analysis stage tests (on the virtual CPU mesh).
+"""Device analysis stage tests (on the virtual CPU mesh).
 
 Validates the linear-algebra intra weight matrices against the normative
 scalar backend (the project's analogue of the reference asm_test: C kernels
@@ -134,3 +134,66 @@ def test_lookahead_static_gm_matches_zz():
     assert float(np.asarray(st["gm_sad"])[0]) == 0.0
     assert tuple(np.asarray(st["gm_mv"])[0]) == (0, 0)
     assert np.asarray(st["gm_sad"])[1] <= np.asarray(st["zz_sad"])[1]
+
+
+def _dots(jaxpr):
+    """(operand dtype, precision) of every dot_general in a jaxpr, nested
+    jaxprs included."""
+    import jax
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append((eqn.invars[0].aval.dtype, eqn.params["precision"]))
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out += _dots(sub)
+    return out
+
+
+@pytest.mark.parametrize("fn", ["intra_search_size",
+                                "intra_search_size_pred"])
+def test_ois_contractions_are_exact_on_any_backend(fn):
+    """The 35-mode prediction is a float32 matmul and must run at HIGHEST
+    precision (TF32 on a GPU would round its 1/256 fractions away); the
+    Hadamard SATD runs on scaled integers, whose sums no summation order
+    can change."""
+    import jax
+    import jax.numpy as jnp
+    from svt_hevc_tpu.tpu import analysis
+    y = jnp.zeros((32, 32), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda p: getattr(analysis, fn)(p, 8))(y)
+    dots = _dots(jaxpr.jaxpr)
+    high = jax.lax.Precision.HIGHEST
+    floats = [p for dt, p in dots if dt == jnp.float32]
+    assert floats == [(high, high)]
+    assert sorted(str(dt) for dt, _ in dots) == ["float32", "int32", "int32"]
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_ois_costs_exact_vs_float64(n):
+    """On natural-range content the float32 search is exact: modes and
+    costs equal a float64 numpy evaluation of the same definition, so no
+    summation order (another backend's) can change them."""
+    import jax.numpy as jnp
+    from svt_hevc_tpu.tpu.analysis import (_hadamard, extract_block_refs,
+                                           intra_search_size)
+    rng = np.random.default_rng(n)
+    yy, xx = np.mgrid[0:64, 0:128]
+    y = (60 + xx + yy // 2 + rng.integers(-6, 7, (64, 128))).astype(
+        np.float32)
+    mode, cost = (np.asarray(a) for a in
+                  intra_search_size(jnp.asarray(y), n))
+
+    refs = np.asarray(extract_block_refs(jnp.asarray(y), n), np.float64)
+    preds = refs @ mode_weight_matrix(n).reshape(35 * n * n, -1).T
+    gh, gw = 64 // n, 128 // n
+    src = y.reshape(gh, n, gw, n).transpose(0, 2, 1, 3).reshape(-1, 1, n, n)
+    diff = preds.reshape(-1, 35, n, n) - src
+    t = 4 if n == 4 else 8
+    hm = _hadamard(t).astype(np.float64)
+    tiles = diff.reshape(-1, 35, n // t, t, n // t, t).transpose(
+        0, 1, 2, 4, 3, 5)
+    tr = hm @ tiles @ hm.T
+    want = np.abs(tr).sum(axis=(-4, -3, -2, -1)) / t
+    np.testing.assert_array_equal(cost.ravel().astype(np.float64),
+                                  want.min(axis=1))
+    np.testing.assert_array_equal(mode.ravel(), want.argmin(axis=1))

@@ -1,4 +1,4 @@
-"""TPU encode-pass kernels vs the host normative implementations.
+"""Device encode-pass stages vs the host normative implementations.
 
 The analogue of the reference's asm_test (C_DEFAULT vs auto-ASM
 bit-exactness, Tests/SVT-HEVC_FunctionalTests.py:830): every device
@@ -10,12 +10,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from svt_hevc_tpu.core.inter import interp_chroma, interp_luma
+from svt_hevc_tpu.core.inter import (interp_chroma, interp_chroma_raw,
+                                     interp_luma, interp_luma_raw)
 from svt_hevc_tpu.core.quant import dequantize, quantize
 from svt_hevc_tpu.core.transforms import forward_transform, inverse_transform
-from svt_hevc_tpu.tpu.encode import (PAD, chroma_phase_planes, dense_tq_size,
-                                     encode_pass_p, luma_phase_planes,
-                                     mc_pred_chroma, mc_pred_luma)
+from svt_hevc_tpu.tpu.encode import (PAD, _ext_c, _ext_y, _mc_chroma,
+                                     _mc_luma, chroma_phase_planes,
+                                     dense_tq_size, encode_pass_p,
+                                     luma_phase_planes, mc_pred_chroma,
+                                     mc_pred_luma)
 
 RNG = np.random.default_rng(3)
 
@@ -53,6 +56,37 @@ def test_chroma_mcp_bit_exact(bit_depth):
                              bit_depth, 1, 1)
         got = pred[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4]
         assert np.array_equal(got, want), (by, bx, mvx, mvy)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("rounded", [True, False])
+def test_direct_mc_matches_spec_filters(bit_depth, rounded):
+    """Per-block luma (8x8) and chroma (4x4) MC, the only MC of the fused
+    graphs, against the spec interpolation of core/inter.py on every block:
+    rounded and clipped samples, or the 14-bit bi-prediction intermediates.
+    MVs span the whole clamped reach, so windows run off every edge."""
+    rng = np.random.default_rng(bit_depth * 2 + rounded)
+    h, w = 64, 128
+    maxval = (1 << bit_depth) - 1
+    ref = rng.integers(0, maxval + 1, (h, w)).astype(np.int32)
+    refc = rng.integers(0, maxval + 1, (h // 2, w // 2)).astype(np.int32)
+    lim = (PAD - 9) * 4
+    mv8 = rng.integers(-lim, lim + 1, (h // 8, w // 8, 2)).astype(np.int32)
+    py = np.asarray(_mc_luma(_ext_y(jnp.asarray(ref)), jnp.asarray(mv8),
+                             bit_depth, rounded))
+    pc = np.asarray(_mc_chroma(_ext_c(jnp.asarray(refc)), jnp.asarray(mv8),
+                               bit_depth, rounded))
+    fl = interp_luma if rounded else interp_luma_raw
+    fc = interp_chroma if rounded else interp_chroma_raw
+    for by in range(h // 8):
+        for bx in range(w // 8):
+            mvx, mvy = int(mv8[by, bx, 0]), int(mv8[by, bx, 1])
+            np.testing.assert_array_equal(
+                py[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8],
+                fl(ref, bx * 8, by * 8, 8, 8, mvx, mvy, bit_depth))
+            np.testing.assert_array_equal(
+                pc[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4],
+                fc(refc, bx * 4, by * 4, 4, 4, mvx, mvy, bit_depth))
 
 
 @pytest.mark.parametrize("bit_depth", [8, 10])

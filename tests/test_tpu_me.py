@@ -1,8 +1,10 @@
-"""TPU hierarchical motion estimation tests (virtual CPU mesh)."""
+"""Hierarchical motion estimation tests (virtual CPU mesh)."""
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from svt_hevc_tpu.tpu.me import hme_search
+from svt_hevc_tpu.tpu.me import _block_sad_all_disp, hme_search
 
 
 def _textured(h, w, seed=0):
@@ -51,9 +53,30 @@ def test_large_motion_within_range():
 
 
 def test_p_encode_with_me_seed_bitmatch():
-    """Pipeline wiring: TPU-seeded P encode still decodes bit-exact."""
+    """Pipeline wiring: device-seeded P encode still decodes bit-exact."""
     from test_inter import _roundtrip_seq, moving_sequence
     frames = moving_sequence(64, 64, 3, dx=6, dy=0, seed=4)
     _, recons, decoded = _roundtrip_seq(frames, qp=34)
     for r, d in zip(recons, decoded):
         np.testing.assert_array_equal(r.y, d.y)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (32, 256)])
+@pytest.mark.parametrize("r", [2, 4])
+def test_block_sad_field_matches_brute_force(shape, r):
+    """The vmapped shift/abs/box-sum SAD field equals a numpy brute force
+    over every displacement, with edge-replicated reference samples."""
+    h, w = shape
+    n = 16
+    rng = np.random.default_rng(h + r)
+    src = rng.integers(0, 256, shape).astype(np.float32)
+    ref = rng.integers(0, 256, shape).astype(np.float32)
+    got = np.asarray(_block_sad_all_disp(jnp.asarray(src), jnp.asarray(ref),
+                                         n, r))
+    assert got.shape == (2 * r + 1, 2 * r + 1, h // n, w // n)
+    pad = np.pad(ref, r, mode="edge")
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            diff = np.abs(src - pad[dy:dy + h, dx:dx + w])
+            want = diff.reshape(h // n, n, w // n, n).sum(axis=(1, 3))
+            np.testing.assert_array_equal(got[dy, dx], want)

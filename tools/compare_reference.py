@@ -22,8 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-# BD-rate is platform-independent (TPU and CPU backends are bit-exact,
-# bench.py --tpu-cpu-check); pin CPU so the tool runs anywhere and never
+# BD-rate is platform-independent (GPU and CPU backends are bit-exact,
+# bench.py --device-cpu-check); pin CPU so the tool runs anywhere and never
 # contends with a bench on the real chip. Speed numbers come from
 # bench.py, not this tool.
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
